@@ -1,8 +1,8 @@
 """Audit the COMPILED collectives of the fused sharded cycle against
-the analytic ICI budget (docs/PERF.md "Multi-chip ICI budget").
+the analytic inter-device budget (tests/test_spmd_production.py).
 
-Round-3 verdict weak #3: the budget was hand-derived and never checked
-against what XLA/GSPMD actually compiles — in particular
+The budget was hand-derived; this checks it against what XLA/GSPMD
+actually compiles — in particular
 `fused_aux_refresh` runs under GSPMD on the time-sharded arrays, where
 the full-T scene median and the sequential One-Euro scan are free for
 the partitioner to implement with whatever gathers it likes. This
@@ -10,11 +10,11 @@ script lowers `spmd_stage1_cycle_fused` at the production shape on a
 virtual 8-device CPU mesh, compiles it, and extracts every collective
 op (kind, per-device shape, bytes) from the optimized HLO.
 
-Usage (CPU-only; no TPU needed):
+Usage (CPU-only; no GPU needed):
     python script/audit_collectives.py            # V=128 structural
     python script/audit_collectives.py --full-smpl  # V=6890 production
 
-Prints a markdown table (for docs/PERF.md) plus one JSON line. The
+Prints a markdown table plus one JSON line. The
 shapes are PER-PARTITION (the compiled module is the per-device SPMD
 program), so bytes are per-device per-cycle — directly comparable to
 the analytic budget.
@@ -38,20 +38,18 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from mhmocap_tpu.cache import cpu_cache_dir  # noqa: E402
+from mhmocap.cache import cpu_cache_dir  # noqa: E402
 
-# set the ENV VAR too: `import bench` (in build_problem) runs
-# os.environ.setdefault + jax.config.update at module level, which
-# would otherwise flip the cache back to the shared TPU .jax_cache —
-# poisoning it with CPU AOT entries and re-opening the cross-host
-# SIGABRT hazard the fingerprinted dir exists to close
-os.environ["JAX_COMPILATION_CACHE_DIR"] = cpu_cache_dir(REPO)
-jax.config.update("jax_compilation_cache_dir", cpu_cache_dir(REPO))
+# an outside JAX_COMPILATION_CACHE_DIR wins; otherwise the
+# host-fingerprinted CPU cache (CPU AOT entries from another host can
+# crash on load)
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update("jax_compilation_cache_dir", cpu_cache_dir(REPO))
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
 
 import jax.numpy as jnp  # noqa: E402
 
-from mhmocap_tpu.parallel.hlo_audit import extract_collectives  # noqa: E402
+from mhmocap.parallel.hlo_audit import extract_collectives  # noqa: E402
 
 
 def build_problem(full_smpl: bool, T: int = 201):
@@ -63,8 +61,8 @@ def build_problem(full_smpl: bool, T: int = 201):
     all-reduce must stay O(H*W), only the pose all-gather may grow
     with T)."""
     import bench
-    from mhmocap_tpu.engine import optimizer as E
-    from mhmocap_tpu.models.synthetic import make_synthetic_smpl
+    from mhmocap.engine import optimizer as E
+    from mhmocap.models.synthetic import make_synthetic_smpl
 
     N, side = 3, 256
     if full_smpl:
@@ -81,7 +79,7 @@ def build_problem(full_smpl: bool, T: int = 201):
         window, windows = 128, None
 
     # the Predictor SPMD tuner's layout at this T
-    from mhmocap_tpu.engine.predictor import tune_time_layout
+    from mhmocap.engine.predictor import tune_time_layout
     chunk, bucket = tune_time_layout(T, n_dev=8)
     cfg = E.EngineConfig(
         image_size=(side, side), num_people=N, num_frames=T,
@@ -107,8 +105,8 @@ def main():
                     help="sequence length T (tuned chunk/bucket follow)")
     args = ap.parse_args()
 
-    from mhmocap_tpu.engine import optimizer as E
-    from mhmocap_tpu.parallel import spmd
+    from mhmocap.engine import optimizer as E
+    from mhmocap.parallel import spmd
 
     model, cfg, params, data, aux, coefs = build_problem(
         args.full_smpl, T=args.frames)

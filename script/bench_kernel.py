@@ -1,373 +1,93 @@
-"""Microbenchmark the Pallas rasterizer kernel variants on the TPU.
+"""Time the raster kernel against XLA's brute path on one GPU.
 
-Times forward and forward+backward for a batch of full-size SMPL
-bodies at the bench.py working shape (win=128), across kernel
-parameter variants (FACE_CHUNK, ...), by monkeypatching the module
-constants before tracing. Each variant is a fresh compile — expect
-minutes per variant on the remote TPU the first time.
+Runs chip_smoke's kernel check (full 6890-vertex body, 48 bodies at
+the bench's TS1 placement) at windows 160, 128 and 112, then, with
+--sweep, times the kernel alone at window 160 over a grid of block
+geometries (cell size, faces per chunk, warps). One JSON line per
+measurement on stdout, each with the card's name and power limit;
+--out appends the same lines to a file.
 
-Usage: python script/bench_kernel.py [--bodies 48] [--win 128]
+Usage: python script/bench_kernel.py [--sweep] [--reps 7] [--out F]
 """
 
 import argparse
+import itertools
+import json
 import os
 import sys
-import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache"))
-
-import numpy as np  # noqa: E402
-import jax  # noqa: E402
-
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-
-import jax.numpy as jnp  # noqa: E402
+import chip_smoke as C  # noqa: E402
 
 
-def make_bodies(n_bodies, win):
-    from mhmocap_tpu.models.synthetic import make_synthetic_smpl
-    from mhmocap_tpu.models.smpl import smpl_forward
-    from mhmocap_tpu.ops.cameras import intrinsics_from_fov
-    from mhmocap_tpu.ops.rasterizer import RasterSettings
-
-    side = 256
-    model = make_synthetic_smpl()
-    K = intrinsics_from_fov((side, side), 60.0)
-    rng = np.random.RandomState(0)
-    poses = 0.1 * rng.randn(n_bodies, 72).astype(np.float32)
-    betas = np.zeros((n_bodies, 10), np.float32)
-    out = smpl_forward(model, jnp.asarray(betas), jnp.asarray(poses))
-    verts = np.array(out["verts"])
-    verts[..., 2] += np.linspace(3.0, 5.0, n_bodies)[:, None]
-    verts[..., 0] += np.tile(np.linspace(-0.8, 0.8, 4),
-                             n_bodies // 4 + 1)[:n_bodies, None]
-    rs = RasterSettings(image_size=(side, side), window=win,
-                        face_chunk=128, znear=1.0, zfar=100.0)
-    return jnp.asarray(verts), model.faces, jnp.asarray(K), rs
+def sweep_geometries():
+    from mhmocap.ops.raster_pallas import KernelGeometry
+    for (ch, cw), fc, nw in itertools.product(
+            [(8, 16), (16, 16), (16, 32)], [16, 32, 64], [4, 8]):
+        yield KernelGeometry(cell_h=ch, cell_w=cw, face_chunk=fc,
+                             num_warps=nw)
 
 
-def bench_variant(name, verts, faces, K, rs, n=10):
-    from mhmocap_tpu.ops.raster_pallas import rasterize_body_pallas
+def kernel_times(win, verts, model, K, geo, reps):
+    import jax
+    import jax.numpy as jnp
+    from mhmocap.ops import raster_pallas as RP
+    from mhmocap.ops.rasterizer import RasterSettings
 
-    fwd = jax.jit(lambda v: jax.vmap(
-        lambda vv: rasterize_body_pallas(vv, faces, K, rs))(v))
+    st = RasterSettings(image_size=(256, 256), window=win,
+                        preordered=True)
+
+    def fwd(v):
+        o = RP.rasterize_bodies_pallas(v, model.faces, K, st, geo=geo)
+        return o["zbuf"], o["sil"]
 
     def loss(v):
-        o = jax.vmap(lambda vv: rasterize_body_pallas(vv, faces, K,
-                                                      rs))(v)
-        zb = jnp.where(jnp.isfinite(o["zbuf"]), o["zbuf"], 0.0)
-        return jnp.sum(zb) + jnp.sum(o["sil"])
-
-    bwd = jax.jit(jax.grad(loss))
-
-    t0 = time.time()
-    out = fwd(verts)
-    jax.block_until_ready(out)
-    c_fwd = time.time() - t0
-    t0 = time.time()
-    for _ in range(n):
-        out = fwd(verts)
-    jax.block_until_ready(out)
-    t_fwd = (time.time() - t0) / n
-
-    t0 = time.time()
-    g = bwd(verts)
-    jax.block_until_ready(g)
-    c_bwd = time.time() - t0
-    t0 = time.time()
-    for _ in range(n):
-        g = bwd(verts)
-    jax.block_until_ready(g)
-    t_bwd = (time.time() - t0) / n
-
-    sil_sum = float(jnp.sum(out["sil"]))
-    g_norm = float(jnp.linalg.norm(g))
-    print(f"{name:34s} fwd {t_fwd * 1e3:8.2f} ms   fwd+bwd "
-          f"{t_bwd * 1e3:8.2f} ms   (compiles {c_fwd:.0f}/{c_bwd:.0f}s"
-          f", sil={sil_sum:.1f}, |g|={g_norm:.3f})", flush=True)
-    return t_fwd, t_bwd
+        zbuf, sil = fwd(v)
+        return jnp.sum(sil) + jnp.sum(jnp.where(jnp.isfinite(zbuf),
+                                                zbuf, 0.0))
+    return (1e3 * C._timed(jax.jit(fwd), verts, reps=reps),
+            1e3 * C._timed(jax.jit(jax.grad(loss)), verts, reps=reps))
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--bodies", type=int, default=48)
-    ap.add_argument("--win", type=int, default=128)
-    ap.add_argument("--variants", default="fc128,fc256")
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--out", default="")
     args = ap.parse_args()
 
-    from mhmocap_tpu.ops import raster_pallas as RP
+    card = C.env_phase()
+    from mhmocap.cache import enable_compile_cache
+    enable_compile_cache()
+    import jax
+    if jax.devices()[0].platform != "gpu":
+        raise SystemExit("no GPU")
 
-    verts, faces, K, rs = make_bodies(args.bodies, args.win)
-    print(f"bodies={args.bodies} win={args.win} "
-          f"faces={faces.shape[0]}", flush=True)
+    def emit(rec):
+        rec["card"] = card
+        line = json.dumps(rec)
+        print(line, flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(line + "\n")
 
-    if "packparts" in args.variants:
-        from mhmocap_tpu.ops.rasterizer import face_planes, \
-            window_origin
-        from mhmocap_tpu.ops.cameras import project_points
-
-        def prep(v):
-            uvz = project_points(v, K, return_depth=True)
-            uv, z = uvz[..., :2], uvz[..., 2]
-            origin = window_origin(uv, z, rs)
-            fuv = uv[faces] - origin.astype(uv.dtype)
-            return face_planes(fuv, z[faces], rs.znear)
-
-        def tm(fn, *a, name=""):
-            f = jax.jit(fn)
-            out = f(*a)
-            jax.block_until_ready(out)
-            t0 = time.time()
-            for _ in range(10):
-                out = f(*a)
-            jax.block_until_ready(out)
-            print(f"{name:34s} fwd {(time.time() - t0) / 10 * 1e3:8.2f}"
-                  f" ms", flush=True)
-            return out
-
-        tm(lambda v: jax.vmap(lambda vv: vv[faces])(v), verts,
-           name="verts[faces] gather only")
-        planes, bbox, oks, okd = tm(
-            lambda v: jax.vmap(prep)(v), verts,
-            name="prep (proj+gather+face_planes)")
-        key = bbox[..., 0] + bbox[..., 1]
-        order = tm(lambda k: jnp.argsort(k, axis=-1), key,
-                   name="argsort only")
-        tm(lambda p, o: jnp.take_along_axis(
-            p, o[..., None], axis=1), planes, order,
-           name="sorted gather (F,12) only")
-
-    if "packstatic" in args.variants:
-        from mhmocap_tpu.ops.rasterizer import face_planes, \
-            window_origin, spatial_face_order
-        from mhmocap_tpu.ops.cameras import project_points
-        import numpy as _np
-
-        order = spatial_face_order(
-            _np.zeros((int(jnp.max(faces)) + 1, 3)) if False else
-            _np.random.RandomState(0).randn(int(jnp.max(faces)) + 1, 3),
-            _np.asarray(faces))
-        faces_p = jnp.asarray(_np.asarray(faces)[order])
-
-        def pack_static(v):
-            uvz = project_points(v, K, return_depth=True)
-            uv, z = uvz[..., :2], uvz[..., 2]
-            origin = window_origin(uv, z, rs)
-            fuv = uv[faces_p] - origin.astype(uv.dtype)
-            planes, bbox, oks, okd = face_planes(fuv, z[faces_p],
-                                                 rs.znear)
-            reach = 3.0 * float(_np.sqrt(rs.sil_blur_px2)) + 1.0
-            mat, meta, agg = RP._pack_face_table_static(
-                planes, bbox, oks, okd, bbox[:, 2] - reach,
-                bbox[:, 3] + reach, reach)
-            lists, bounds = RP._strip_chunk_lists(agg, rs.window)
-            return mat, meta, lists, bounds
-
-        fn = jax.jit(lambda v: jax.vmap(pack_static)(v))
-        out = fn(verts)
-        jax.block_until_ready(out)
-        t0 = time.time()
-        for _ in range(10):
-            out = fn(verts)
-        jax.block_until_ready(out)
-        print(f"{'pack static (no sort/gather)':34s} fwd "
-              f"{(time.time() - t0) / 10 * 1e3:8.2f} ms", flush=True)
-
-    if "pack" in args.variants:
-        from mhmocap_tpu.ops.rasterizer import face_planes, \
-            window_origin
-        from mhmocap_tpu.ops.cameras import project_points
-
-        def pack_only(v):
-            uvz = project_points(v, K, return_depth=True)
-            uv, z = uvz[..., :2], uvz[..., 2]
-            origin = window_origin(uv, z, rs)
-            fuv = uv[faces] - origin.astype(uv.dtype)
-            planes, bbox, oks, okd = face_planes(fuv, z[faces],
-                                                 rs.znear)
-            import numpy as _np
-            reach = 3.0 * float(_np.sqrt(rs.sil_blur_px2)) + 1.0
-            return RP._pack_face_table(planes, bbox, oks, okd,
-                                       bbox[:, 2] - reach,
-                                       bbox[:, 3] + reach, reach)[:2]
-
-        fn = jax.jit(lambda v: jax.vmap(pack_only)(v))
-        out = fn(verts)
-        jax.block_until_ready(out)
-        t0 = time.time()
-        for _ in range(10):
-            out = fn(verts)
-        jax.block_until_ready(out)
-        print(f"{'pack (proj+planes+sort+tables)':34s} fwd "
-              f"{(time.time() - t0) / 10 * 1e3:8.2f} ms", flush=True)
-
-    if "check" in args.variants:
-        # pallas (TPU MXU) vs brute backend (pure VPU f32) on one body
-        from mhmocap_tpu.ops.rasterizer import rasterize_body
-        from mhmocap_tpu.ops.raster_pallas import rasterize_body_pallas
-
-        v1 = verts[0]
-        a = jax.jit(lambda v: rasterize_body_pallas(v, faces, K, rs))(v1)
-        b = jax.jit(lambda v: rasterize_body(
-            v, faces, K, rs._replace(backend="brute")))(v1)
-        za, zb_ = np.asarray(a["zbuf"]), np.asarray(b["zbuf"])
-        cov_a, cov_b = np.isfinite(za), np.isfinite(zb_)
-        both = cov_a & cov_b
-        print(f"check: coverage mismatch px = {(cov_a != cov_b).sum()}"
-              f" / {cov_a.size}; max|dz| on covered = "
-              f"{np.abs(za[both] - zb_[both]).max():.3e}; "
-              f"max|dsil| = "
-              f"{np.abs(np.asarray(a['sil']) - np.asarray(b['sil'])).max():.3e}",
-              flush=True)
-
-        def loss_p(v):
-            o = rasterize_body_pallas(v, faces, K, rs)
-            zb = jnp.where(jnp.isfinite(o["zbuf"]), o["zbuf"], 0.0)
-            return jnp.sum(zb) + jnp.sum(o["sil"])
-
-        def loss_b(v):
-            o = rasterize_body(v, faces, K,
-                               rs._replace(backend="brute"))
-            zb = jnp.where(jnp.isfinite(o["zbuf"]), o["zbuf"], 0.0)
-            return jnp.sum(zb) + jnp.sum(o["sil"])
-
-        gp = np.asarray(jax.jit(jax.grad(loss_p))(v1))
-        gb = np.asarray(jax.jit(jax.grad(loss_b))(v1))
-        print(f"check: |g_pallas|={np.linalg.norm(gp):.2f} "
-              f"|g_brute|={np.linalg.norm(gb):.2f} "
-              f"max|dg|={np.abs(gp - gb).max():.3e}", flush=True)
-
-    if "schedslack" in args.variants:
-        # Measure what a SCHEDULED-BUT-SKIPPED (cell, chunk) pair
-        # actually costs (round-3 verdict weak #6): the per-cell
-        # [lo, hi) ranges over the x-sorted strip lists carry ~26%
-        # slack pairs (589 sched vs 469 exact/body at win 160) that
-        # the kernel skips with the 4-scalar SMEM cond. Timing the
-        # SAME kernel with bounds widened to the full strip-active
-        # list gives the per-skipped-pair cost by linear regression;
-        # projecting back to the 120 residual slack pairs bounds what
-        # a perfect (bitmask/split-range) schedule could save.
-        from mhmocap_tpu.ops.rasterizer import spatial_face_order
-        from mhmocap_tpu.models.synthetic import make_synthetic_smpl
-        from mhmocap_tpu.models.smpl import smpl_forward as _sf
-        import numpy as _np
-
-        model = make_synthetic_smpl()
-        rest = _np.asarray(_sf(model, jnp.zeros((1, 10)),
-                               jnp.zeros((1, 72)))["verts"])[0]
-        order = spatial_face_order(rest, _np.asarray(faces))
-        faces_p = jnp.asarray(_np.asarray(faces)[order])
-        rs_p = rs._replace(preordered=True)
-
-        orig_lists = RP._strip_chunk_lists
-
-        def wide_lists(agg, win):
-            lists, bounds = orig_lists(agg, win)
-            n_xb = RP._n_xb(win)
-            n_strips = win // RP.STRIP_H
-            # schedule EVERY strip-active chunk for every cell in the
-            # strip (actives are packed to the front of the list):
-            # lo = 0, hi = per-strip max over the exact cell his
-            hi_strip = jnp.max(bounds[:, 1].reshape(n_strips, n_xb),
-                               axis=1, keepdims=True)
-            hi = jnp.broadcast_to(hi_strip, (n_strips, n_xb)).reshape(
-                n_strips * n_xb, 1)
-            return lists, jnp.concatenate(
-                [jnp.zeros_like(hi), hi], axis=1)
-
-        # pair counts (host-side, body 0) for the regression
-        def pair_counts(v):
-            from mhmocap_tpu.ops.cameras import project_points
-            from mhmocap_tpu.ops.rasterizer import face_planes, \
-                window_origin
-            uvz = project_points(v, K, return_depth=True)
-            uv, z = uvz[..., :2], uvz[..., 2]
-            o = window_origin(uv, z, rs_p)
-            fuv = uv[faces_p] - o.astype(uv.dtype)
-            planes, bbox, oks, okd = face_planes(fuv, z[faces_p],
-                                                 rs_p.znear)
-            reach = 3.0 * float(_np.sqrt(rs_p.sil_blur_px2)) + 1.0
-            _, _, agg = RP._pack_face_table_static(
-                planes, bbox, oks, okd, bbox[:, 2] - reach,
-                bbox[:, 3] + reach, reach)
-            _, b_std = orig_lists(agg, rs_p.window)
-            _, b_wide = wide_lists(agg, rs_p.window)
-            return (int(_np.asarray(b_std[:, 1] - b_std[:, 0]).sum()),
-                    int(_np.asarray(b_wide[:, 1]
-                                    - b_wide[:, 0]).sum()))
-
-        p_std, p_wide = 0, 0
-        for i in range(verts.shape[0]):
-            a, b = pair_counts(verts[i])
-            p_std += a
-            p_wide += b
-        print(f"scheduled pairs: std {p_std} wide {p_wide} "
-              f"(+{p_wide - p_std} skipped-only)", flush=True)
-
-        t_fwd_std, t_bwd_std = bench_variant(
-            "sched std (preordered)", verts, faces_p, K, rs_p)
-        RP._strip_chunk_lists = wide_lists
-        try:
-            t_fwd_w, t_bwd_w = bench_variant(
-                "sched wide (all strip-actives)", verts, faces_p, K,
-                rs_p)
-        finally:
-            RP._strip_chunk_lists = orig_lists
-        extra = p_wide - p_std
-        cost_f = (t_fwd_w - t_fwd_std) / max(extra, 1)
-        cost_b = (t_bwd_w - t_bwd_std) / max(extra, 1)
-        # residual slack the perfect schedule would remove
-        import mhmocap_tpu.ops.raster_pallas  # noqa: F401
-        print(f"per-skipped-pair cost: fwd {cost_f * 1e9:.1f} ns "
-              f"fwd+bwd {cost_b * 1e9:.1f} ns", flush=True)
-        print(f"projected perfect-schedule saving at current slack: "
-              f"see raster_sched_stats for (sched - exact); saving = "
-              f"slack_pairs * cost", flush=True)
-
-    # snapshot the module defaults so each variant starts from the
-    # SHIPPED configuration (restoring hard-coded values here once
-    # made cross-variant numbers non-comparable: the first variant ran
-    # the vpu default while later ones inherited mxu + the previous
-    # variant's FACE_CHUNK)
-    defaults = {k: getattr(RP, k) for k in
-                ("FACE_CHUNK", "X_SKIP", "EVAL_MODE",
-                 "MATMUL_PRECISION", "BWD_MATMUL_MODE",
-                 "SIL_ACCUM_MODE")}
-    for variant in args.variants.split(","):
-        if variant in ("pack", "packparts", "packstatic", "check",
-                       "schedslack"):
-            continue
-        if variant.startswith("fc"):
-            RP.FACE_CHUNK = int(variant[2:])
-        if variant == "nocond":
-            RP.X_SKIP = False
-        if variant == "lowprec":
-            RP.EVAL_MODE = "mxu"
-            RP.MATMUL_PRECISION = None
-        if variant == "mxu":
-            RP.EVAL_MODE = "mxu"
-        if variant == "vpu":
-            RP.EVAL_MODE = "vpu"
-        if variant.startswith("bwd"):
-            RP.BWD_MATMUL_MODE = variant[3:]   # split | highest | bf16
-        if variant == "siloff":
-            # transcendental time-share probe: WRONG outputs (the
-            # printed sil/|g| will differ), time delta vs the shipped
-            # kernel is the log_sigmoid chain's true hardware cost
-            RP.SIL_ACCUM_MODE = "off"
-        try:
-            bench_variant(variant, verts, faces, K, rs)
-        finally:
-            for k, v in defaults.items():
-                setattr(RP, k, v)
+    verts, model, K = C.kernel_bodies()
+    for win in C.KERNEL_WINDOWS:
+        emit(dict(C.kernel_check(win, verts, model, K, reps=args.reps),
+                  kind="check"))
+    if args.sweep:
+        for geo in sweep_geometries():
+            try:
+                f, fb = kernel_times(160, verts, model, K, geo, args.reps)
+                emit({"kind": "sweep", "window": 160,
+                      "geometry": geo._asdict(), "kernel_fwd_ms": f,
+                      "kernel_fwdbwd_ms": fb})
+            except Exception as e:       # a geometry the compiler refuses
+                emit({"kind": "sweep", "window": 160,
+                      "geometry": geo._asdict(),
+                      "error": f"{type(e).__name__}: {e}"[:300]})
 
 
 if __name__ == "__main__":

@@ -63,16 +63,17 @@ def main():
     args = ap.parse_args()
 
     os.environ["JAX_PLATFORMS"] = "cpu"
-    from mhmocap_tpu.cache import cpu_cache_dir
-    os.environ["JAX_COMPILATION_CACHE_DIR"] = cpu_cache_dir(REPO)
     import jax
-    jax.config.update("jax_platforms", "cpu")
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        from mhmocap.cache import cpu_cache_dir
+        jax.config.update("jax_compilation_cache_dir",
+                          cpu_cache_dir(REPO))
     import jax.numpy as jnp
 
-    from mhmocap_tpu.config import ConfigContext, parse_args
-    from mhmocap_tpu.eval.metrics import pose_error_3dproj
-    from mhmocap_tpu.models.smpl import smpl_forward
-    from mhmocap_tpu.predict_mupots import build_mupots_sequence
+    from mhmocap.config import ConfigContext, parse_args
+    from mhmocap.eval.metrics import pose_error_3dproj
+    from mhmocap.models.smpl import smpl_forward
+    from mhmocap.predict_mupots import build_mupots_sequence
 
     out_dir = os.path.join(args.workdir, "out", f"TS{args.ts}")
     with open(os.path.join(out_dir, "optvar_stage1.pkl"), "rb") as f:
@@ -96,7 +97,7 @@ def main():
                 **kargs)
             stale = np.asarray(seq.lagged_tn)
         else:
-            from mhmocap_tpu.models.loader import resolve_smpl_model
+            from mhmocap.models.loader import resolve_smpl_model
             model = resolve_smpl_model(
                 kargs["smpl_model_parameters_path"])
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Diff two FinalResults.json files (reference vs mhmocap_tpu).
+"""Diff two FinalResults.json files (reference vs mhmocap).
 
 Usage: python script/diff_final_results.py REF.json OURS.json
        [--pck-tol 0.5]

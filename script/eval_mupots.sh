@@ -4,6 +4,6 @@
 set -e
 cd "$(dirname "$0")/.."
 
-python -m mhmocap_tpu.eval_mupots \
+python -m mhmocap.eval_mupots \
   --configs_yml configs/eval_mupots.yml \
   --input_path "./output/mupots"

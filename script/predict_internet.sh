@@ -4,6 +4,6 @@
 set -e
 cd "$(dirname "$0")/.."
 
-python -m mhmocap_tpu.predict_internet \
+python -m mhmocap.predict_internet \
   --configs_yml configs/default.yml \
   --output_path "./output/internet"

@@ -6,7 +6,7 @@ cd "$(dirname "$0")/.."
 
 sel_sets=(1 2 3 4 5 6 7 8 9 10 11 12 13 14 15 16 17 18 19 20)
 for ts in "${sel_sets[@]}"; do
-  python -m mhmocap_tpu.predict_mupots \
+  python -m mhmocap.predict_mupots \
     --configs_yml configs/predict_mupots.yml \
     --ts_id "$ts" \
     --output_path "./output/mupots"

@@ -4,7 +4,7 @@
 set -e
 cd "$(dirname "$0")/.."
 
-python -m mhmocap_tpu.predict_mupots \
+python -m mhmocap.predict_mupots \
   --configs_yml configs/predict_mupots.yml \
   --ts_id 1 \
   --num_iter 100 \

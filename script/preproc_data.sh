@@ -19,4 +19,4 @@ echo "AlphaPose:  python scripts/demo_inference.py --indir $INPUT/images --outdi
 echo "ROMP:       romp --mode=video -i $INPUT/images -o $INPUT/ROMP_Predictions --save_npz"
 echo "Mask2Former: python run_instance_segmentation.py -i $INPUT/images -o $INPUT/Mask2Former_Instances"
 echo "(synthetic alternative for testing:"
-echo "  python -c 'from mhmocap_tpu.data.synthetic import generate_sequence; generate_sequence(\"$INPUT\")')"
+echo "  python -c 'from mhmocap.data.synthetic import generate_sequence; generate_sequence(\"$INPUT\")')"

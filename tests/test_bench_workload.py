@@ -1,16 +1,14 @@
 """Pin the bench.py workload's DERIVED configuration.
 
-BENCH_r{N}.json is the harness-visible performance record; its
-workload must stay the TS1-scale production shape (201 frames, 3
-people, guard-grown 160 px window, the auto-tuned scan chunk) or the
-recorded numbers silently stop being comparable across rounds. This
+bench.py's workload must stay the TS1-scale production shape (201
+frames, 3 people, guard-grown 160 px window, the auto-tuned scan
+chunk) or its numbers silently stop being comparable across PRs. This
 test locks the config the Predictor derives from bench.make_ts1_like_seq
 so any change to the guard/auto-chunk logic that would shift the
 benchmarked shape fails loudly here first.
 """
 
 import tempfile
-import types
 
 import numpy as np
 import pytest
@@ -24,20 +22,48 @@ def bench_seq():
 
 def _bench_args():
     import bench
-    return types.SimpleNamespace(
-        num_iter=2, batch_size=10, save_visualizations=False,
-        verbose=False,
-        proj2d_loss_coef=1.0, depth_loss_coef=0.05,
-        silhouette_loss_coef=0.1, reg_poses_coef=0.002,
-        reg_scales_coef=1e-4, reg_velocity_coef=0.05,
-        reg_verts_filter_coef=0.002, reg_contact_coef=0.001,
-        reg_foot_sliding_coef=0.01, joint_confidence_thr=0.5,
-        raster_window=bench.WINDOW, spmd=False)
+    return bench.fit_args(num_iter=2, spmd=False)
+
+
+class _FakeDevice:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("stats, budget", [
+    ({"bytes_limit": 60e9, "bytes_in_use": 0}, 0.375 * 60e9),
+    ({"bytes_limit": 12e9}, 0.375 * 12e9),
+    (None, 0.375 * 16e9),                 # CPU: no stats reported
+    ({}, 0.375 * 16e9),
+])
+def test_remat_budget_from_device_memory(monkeypatch, stats, budget):
+    """use_remat's threshold follows memory_stats()['bytes_limit'] of
+    the default device, with a stated fallback where none is reported;
+    the bench shape stays store-all on a card as small as 12 GB while
+    a 2,300-frame sequence rematerializes there."""
+    from mhmocap.engine import optimizer as E
+
+    dev = _FakeDevice(stats)
+    assert E.residual_budget_bytes(dev) == pytest.approx(budget)
+    monkeypatch.setattr(E.jax, "devices", lambda: [dev])
+    cfg = E.EngineConfig(image_size=(256, 256), num_people=3,
+                         num_frames=201, chunk=29, frame_bucket=29,
+                         window=160, windows=(160, 128, 112))
+    assert not cfg.use_remat
+    long = E.EngineConfig(image_size=(256, 256), num_people=3,
+                          num_frames=2300, chunk=25, frame_bucket=25,
+                          window=160, windows=(160, 128, 112))
+    assert long.use_remat == (long.padded_frames * 3 * (
+        1.7e6 + 16.0 * np.mean([160 ** 2, 128 ** 2, 112 ** 2]))
+        > budget)
 
 
 @pytest.mark.slow
 def test_bench_workload_config_is_pinned(bench_seq):
-    from mhmocap_tpu.engine.predictor import Predictor
+    from mhmocap.engine.predictor import Predictor
 
     seq, model = bench_seq
     assert (seq.num_frames, seq.num_people) == (201, 3)
@@ -61,7 +87,7 @@ def test_bench_workload_config_is_pinned(bench_seq):
     assert pred.window_clip_rates == (0.0, 0.0, 0.0)
     assert cfg.window_groups == ((160, (0,)), (128, (1,)), (112, (2,)))
 
-    # auto-tuned scan chunk (docs/PERF.md round 3): 7 steps of 29 at
+    # auto-tuned scan chunk (tune_time_layout): 7 steps of 29 at
     # padded 203 — 1% padding, single-device, no remat at this scale
     assert cfg.chunk == 29
     assert cfg.padded_frames == 203
@@ -69,7 +95,7 @@ def test_bench_workload_config_is_pinned(bench_seq):
     assert not cfg.use_remat
     assert cfg.preordered_faces
 
-    # bench pins the ONE-chip cadence: spmd must stay disengaged even
+    # bench pins the ONE-card cadence: spmd must stay disengaged even
     # on a multi-device host (the test mesh has 8 CPU devices)
     assert cfg.frame_bucket == cfg.chunk
 

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from mhmocap_tpu.ops import cameras as C
+from mhmocap.ops import cameras as C
 
 
 def _K():

@@ -32,8 +32,8 @@ DEGRADATIONS = {
 
 @pytest.fixture(scope="module")
 def degraded_tree(tmp_path_factory):
-    from mhmocap_tpu.data.synthetic import generate_sequence
-    from mhmocap_tpu.models.synthetic import make_synthetic_smpl
+    from mhmocap.data.synthetic import generate_sequence
+    from mhmocap.models.synthetic import make_synthetic_smpl
 
     root = tmp_path_factory.mktemp("mupots_degraded")
     model = make_synthetic_smpl(num_vertices=512, seed=11)
@@ -111,8 +111,8 @@ def test_degraded_ingestion_exercises_imputation(degraded_tree):
     produce finite arrays, and show nearest-valid-frame SMPL
     imputation (valid == 0.51) where ROMP rows were dropped."""
     import jax.numpy as jnp
-    from mhmocap_tpu.data.ingestion import load_sequence
-    from mhmocap_tpu.models.smpl import smpl_forward
+    from mhmocap.data.ingestion import load_sequence
+    from mhmocap.models.smpl import smpl_forward
 
     root, gt, model = degraded_tree
 
@@ -198,8 +198,8 @@ def test_degraded_predict_eval_completes(degraded_tree,
         yaml.safe_dump(cfg, f)
     out_dir = str(tmp_path_factory.mktemp("out"))
 
-    import mhmocap_tpu.predict_mupots as PM
-    import mhmocap_tpu.eval_mupots as EM
+    import mhmocap.predict_mupots as PM
+    import mhmocap.eval_mupots as EM
     monkeypatch_module.setattr(PM, "resolve_smpl_model",
                                lambda path: model)
     monkeypatch_module.setattr(EM, "resolve_smpl_model",

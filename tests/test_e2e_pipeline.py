@@ -21,8 +21,8 @@ pytestmark = pytest.mark.slow
 def mupots_tree(tmp_path_factory):
     """A synthetic ./data/mupots-like tree with one sequence (TS1)."""
     import jax
-    from mhmocap_tpu.data.synthetic import generate_sequence
-    from mhmocap_tpu.models.synthetic import make_synthetic_smpl
+    from mhmocap.data.synthetic import generate_sequence
+    from mhmocap.models.synthetic import make_synthetic_smpl
 
     root = tmp_path_factory.mktemp("mupots_data")
     model = make_synthetic_smpl(num_vertices=512, seed=7)
@@ -83,7 +83,7 @@ def predict_output(tmp_path_factory, mupots_tree, config_yml,
     _, _, model = mupots_tree
     out_dir = str(tmp_path_factory.mktemp("out"))
     # patch the model resolver to return the generator's exact model
-    import mhmocap_tpu.predict_mupots as PM
+    import mhmocap.predict_mupots as PM
     monkeypatch_module.setattr(
         PM, "resolve_smpl_model", lambda path: model)
     PM.main(["--configs_yml", config_yml, "--ts_id", "1",
@@ -136,7 +136,7 @@ def test_eval_route_matches_reingestion(predict_output, mupots_tree):
     the dataset with the eval config; this framework reads the stored
     mupots_annot.pkl instead): the stored cam_K and GT slicing must
     equal a fresh re-ingestion of the on-disk tree."""
-    from mhmocap_tpu.data import mupots
+    from mhmocap.data import mupots
 
     data_path, _, _ = mupots_tree
     with open(os.path.join(predict_output, "TS1",
@@ -161,7 +161,7 @@ def test_eval_route_matches_reingestion(predict_output, mupots_tree):
 def test_eval_mupots_writes_results(predict_output, mupots_tree,
                                     config_yml, monkeypatch_module):
     _, _, model = mupots_tree
-    import mhmocap_tpu.eval_mupots as EM
+    import mhmocap.eval_mupots as EM
     monkeypatch_module.setattr(
         EM, "resolve_smpl_model", lambda path: model)
     EM.main(["--configs_yml", config_yml,

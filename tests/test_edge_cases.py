@@ -7,11 +7,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mhmocap_tpu.data.synthetic import generate_sequence
-from mhmocap_tpu.models.synthetic import make_synthetic_smpl
-from mhmocap_tpu.data.ingestion import load_sequence
-from mhmocap_tpu.engine.predictor import Predictor
-from mhmocap_tpu.models.smpl import smpl_forward
+from mhmocap.data.synthetic import generate_sequence
+from mhmocap.models.synthetic import make_synthetic_smpl
+from mhmocap.data.ingestion import load_sequence
+from mhmocap.engine.predictor import Predictor
+from mhmocap.models.smpl import smpl_forward
 
 
 def _args():

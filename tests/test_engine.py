@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mhmocap_tpu.models.synthetic import make_synthetic_smpl
-from mhmocap_tpu.models.smpl import smpl_forward
-from mhmocap_tpu.ops.cameras import project_points, intrinsics_from_fov
-from mhmocap_tpu.engine import optimizer as E
+from mhmocap.models.synthetic import make_synthetic_smpl
+from mhmocap.models.smpl import smpl_forward
+from mhmocap.ops.cameras import project_points, intrinsics_from_fov
+from mhmocap.engine import optimizer as E
 
 
 @pytest.fixture(scope="module")
@@ -63,7 +63,7 @@ def test_init_stage_recovers_translations(tiny_problem):
 
 def _make_seq_data(p, params):
     """Build SeqData whose depths/masks come from the GT scene."""
-    from mhmocap_tpu.data.ingestion import SequenceArrays
+    from mhmocap.data.ingestion import SequenceArrays
     cfg = p["cfg"]
     T, N = cfg.num_frames, cfg.num_people
     W, H = cfg.image_size

@@ -3,7 +3,7 @@ import pytest
 import jax.numpy as jnp
 from scipy.ndimage import distance_transform_edt as scipy_edt
 
-from mhmocap_tpu.engine import fhsog as F
+from mhmocap.engine import fhsog as F
 
 
 def test_edt_matches_scipy_2d(rng):
@@ -101,9 +101,9 @@ def test_build_fhsog_from_smpl(rng):
     """SMPL-conditioned FHSOG (reference fhsog.py:234-296): mass
     accumulates only in background cells away from the rendered
     people, gated near the people's depth bins."""
-    from mhmocap_tpu.models.synthetic import make_synthetic_smpl
-    from mhmocap_tpu.models.smpl import smpl_forward
-    from mhmocap_tpu.ops.cameras import intrinsics_from_fov
+    from mhmocap.models.synthetic import make_synthetic_smpl
+    from mhmocap.models.smpl import smpl_forward
+    from mhmocap.ops.cameras import intrinsics_from_fov
 
     T, N, side, D = 2, 1, 64, 16
     model = make_synthetic_smpl(num_vertices=512, seed=4)
@@ -137,9 +137,9 @@ def test_build_fhsog_from_smpl_rectangular(rng):
     """Non-square frames (reference build_fhsog_from_smpl_2 accepts
     arbitrary HxW, fhsog.py:252-256): the square raster window is
     cropped back to the frame."""
-    from mhmocap_tpu.models.synthetic import make_synthetic_smpl
-    from mhmocap_tpu.models.smpl import smpl_forward
-    from mhmocap_tpu.ops.cameras import intrinsics_from_fov
+    from mhmocap.models.synthetic import make_synthetic_smpl
+    from mhmocap.models.smpl import smpl_forward
+    from mhmocap.ops.cameras import intrinsics_from_fov
 
     T, N, H, W, D = 1, 1, 48, 64, 8
     model = make_synthetic_smpl(num_vertices=512, seed=4)

@@ -2,7 +2,7 @@
 
 Each test hand-constructs files in the reference's formats (survey
 §2.4; reference datautils.py:27-40,57-110,129-157) — independently of
-mhmocap_tpu.data.synthetic — and checks the loaders reproduce known
+mhmocap.data.synthetic — and checks the loaders reproduce known
 values. This is the format half of the reference-parity story
 (docs/PARITY.md); the numeric half needs the real MuPoTs data + GPU.
 """
@@ -15,11 +15,11 @@ import pytest
 import scipy.io as sio
 from PIL import Image
 
-from mhmocap_tpu.data import mupots
-from mhmocap_tpu.data.ingestion import (load_disparity_maps,
+from mhmocap.data import mupots
+from mhmocap.data.ingestion import (load_disparity_maps,
                                         load_segmentation_maps,
                                         split_instance_masks)
-from mhmocap_tpu.data.romp import load_romp_prediction
+from mhmocap.data.romp import load_romp_prediction
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +189,7 @@ def test_romp_extra_betas_truncated(tmp_path):
 def test_alphapose_json_contract(tmp_path):
     """alphapose-results.json: list of {image_id, category_id,
     keypoints (17*3 flat), idx, score} (reference alphapose.py:8-55)."""
-    from mhmocap_tpu.data.alphapose import (load_tracking_results,
+    from mhmocap.data.alphapose import (load_tracking_results,
                                             tracks_to_array)
 
     kpts = np.zeros((17, 3), np.float32)
@@ -237,7 +237,7 @@ def test_shipped_configs_parse_through_loader():
     the reference-parity profile must leave every knob at its off
     default."""
     import glob as _glob
-    from mhmocap_tpu.config import PROJECT_DIR, parse_args
+    from mhmocap.config import PROJECT_DIR, parse_args
 
     ymls = sorted(_glob.glob(os.path.join(PROJECT_DIR, "configs", "*.yml")))
     assert len(ymls) >= 4

@@ -16,9 +16,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mhmocap_tpu.engine import optimizer as E
-from mhmocap_tpu.models.synthetic import make_synthetic_smpl
-from mhmocap_tpu.ops.cameras import intrinsics_from_fov
+from mhmocap.engine import optimizer as E
+from mhmocap.models.synthetic import make_synthetic_smpl
+from mhmocap.ops.cameras import intrinsics_from_fov
 
 
 def _problem(T=12, N=2, chunk=4, gap=True, seed=0, stale=None,
@@ -54,7 +54,7 @@ def _problem(T=12, N=2, chunk=4, gap=True, seed=0, stale=None,
     stale_p = np.zeros((cfg.padded_frames, N), np.float32)
     stale_p[:T] = stale
 
-    from mhmocap_tpu.data.ingestion import SequenceArrays
+    from mhmocap.data.ingestion import SequenceArrays
     seg = np.zeros((T, N, H, W), np.float32)
     for n in range(N):
         seg[:, n, 8:24, 4 + 14 * n:14 + 14 * n] = 1
@@ -245,7 +245,7 @@ def test_spmd_parity_with_stale_halo():
     ride the widened 2-frame ppermute halo exchange — loss, parts and
     poses_T gradients agree across a mesh whose shard boundaries cut
     through the stale spans."""
-    from mhmocap_tpu.parallel import spmd
+    from mhmocap.parallel import spmd
     T = 16
     stale = np.zeros((T, 2), np.float32)
     stale[3:6, 0] = 1.0                    # cuts the 2-frame shards

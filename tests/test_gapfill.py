@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation, Slerp
 
-from mhmocap_tpu.engine.gapfill import (
+from mhmocap.engine.gapfill import (
     axis_angle_to_quat, quat_to_axis_angle, slerp_axis_angle,
     interpolate_gap_trajectories)
 

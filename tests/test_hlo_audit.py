@@ -1,11 +1,11 @@
 """Unit tests for the compiled-HLO collective extraction
-(parallel/hlo_audit.py) — the ICI-budget regression test depends on
+(parallel/hlo_audit.py) — the collective-budget regression test depends on
 this parser reading optimized HLO correctly, so its contract is
 pinned on hand-written HLO snippets."""
 
 import numpy as np
 
-from mhmocap_tpu.parallel.hlo_audit import (collective_totals,
+from mhmocap.parallel.hlo_audit import (collective_totals,
                                             extract_collectives,
                                             shape_bytes)
 

@@ -1,10 +1,11 @@
 import numpy as np
 import jax.numpy as jnp
 import cv2
+import pytest
 
-from mhmocap_tpu.ops import image as I
-from mhmocap_tpu.ops import morphology as Mo
-from mhmocap_tpu.engine import losses as L
+from mhmocap.ops import image as I
+from mhmocap.ops import morphology as Mo
+from mhmocap.engine import losses as L
 
 
 def test_erode_dilate_match_cv2(rng):
@@ -126,3 +127,33 @@ def test_masked_mse_loss_golden():
     mask = jnp.asarray([[1.0, 0.0], [1.0, 1.0]])
     out = float(L.masked_mse_loss(y1, y2, mask))
     np.testing.assert_allclose(out, (1 + 9 + 16) / (3 + 1.0), rtol=1e-6)
+
+
+@pytest.mark.parametrize("fg_iters, bg_iters", [(1, 1), (3, 9), (0, 5)])
+def test_segmentation_erosion_matches_cv2(tmp_path, rng, fg_iters,
+                                          bg_iters):
+    """load_segmentation_maps' scipy min/max filters reproduce the
+    cv2.erode/dilate pipeline of the reference (datautils.py:95-106)
+    on random label maps, borders included."""
+    from PIL import Image
+    from mhmocap.data.ingestion import load_segmentation_maps
+
+    labels = rng.randint(0, 4, (4, 4)).repeat(6, 0).repeat(6, 1)
+    labels[rng.rand(*labels.shape) > 0.93] = 0
+    labels = labels.astype(np.uint8)
+    path = str(tmp_path / "seg.png")
+    Image.fromarray(labels).save(path)
+    inst, back = load_segmentation_maps([path], (24, 24), fg_iters,
+                                        bg_iters)
+
+    k = np.ones((3, 3))
+    ref = labels.copy()
+    if fg_iters > 0:
+        e, d = cv2.erode(ref, k), cv2.dilate(ref, k)
+        ref = ((e == d) * ref).astype(np.uint8)
+        if fg_iters > 1:
+            ref = cv2.erode(ref, k, iterations=fg_iters - 1)
+    ref_back = cv2.erode((labels == 0).astype(np.uint8), k,
+                         iterations=bg_iters)
+    np.testing.assert_array_equal(inst[0], ref)
+    np.testing.assert_array_equal(back[0], ref_back)

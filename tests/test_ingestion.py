@@ -7,10 +7,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mhmocap_tpu.data.synthetic import generate_sequence
-from mhmocap_tpu.data.ingestion import load_sequence, split_instance_masks
-from mhmocap_tpu.data import alphapose as AP
-from mhmocap_tpu.models.smpl import smpl_forward
+from mhmocap.data.synthetic import generate_sequence
+from mhmocap.data.ingestion import load_sequence, split_instance_masks
+from mhmocap.data import alphapose as AP
+from mhmocap.models.smpl import smpl_forward
 
 
 @pytest.fixture(scope="module")
@@ -78,7 +78,7 @@ def test_pose2d_matches_projected_gt(seq_tree):
                         cam_K=gt["cam_K"], resize_factor=1.0,
                         post_process_depth=False,
                         renormalize_depth=False)
-    from mhmocap_tpu.ops.cameras import project_points
+    from mhmocap.ops.cameras import project_points
     out = smpl_forward(
         gt["model"],
         jnp.asarray(np.tile(gt["betas"], (6, 1, 1)).reshape(-1, 10)),
@@ -269,7 +269,7 @@ def test_smpl_imputation_fills_missing(seq_tree):
     """Frames with no ROMP detection for a person inherit the nearest
     valid frame's parameters with valid=0.51."""
     root, gt = seq_tree
-    from mhmocap_tpu.data.ingestion import assign_smpl_to_poses
+    from mhmocap.data.ingestion import assign_smpl_to_poses
     T, N = 4, 2
     preds = []
     rng = np.random.RandomState(0)
@@ -301,7 +301,7 @@ def test_smpl_assignment_with_extra_detections(seq_tree):
     the batched-projection refactor, which assumed every frame had at
     most N bodies."""
     root, gt = seq_tree
-    from mhmocap_tpu.data.ingestion import assign_smpl_to_poses
+    from mhmocap.data.ingestion import assign_smpl_to_poses
     T, N = 4, 2
     rng = np.random.RandomState(1)
     preds = []
@@ -333,7 +333,7 @@ def test_lagged_tn_marks_unrefreshed_dropout_frames(seq_tree):
     refresh (here: ROMP is ALSO empty on the dropout frames, so no
     refresh can happen)."""
     root, gt = seq_tree
-    from mhmocap_tpu.data.ingestion import assign_smpl_to_poses
+    from mhmocap.data.ingestion import assign_smpl_to_poses
     T, N = 6, 2
     rng = np.random.RandomState(2)
     preds = []
@@ -369,7 +369,7 @@ def test_lagged_tn_flags_evidence_free_frame_zero(seq_tree):
     spans from frame 0's unconstrained fitted pose instead of holding
     the entry pose."""
     root, gt = seq_tree
-    from mhmocap_tpu.data.ingestion import assign_smpl_to_poses
+    from mhmocap.data.ingestion import assign_smpl_to_poses
     T, N = 5, 2
     rng = np.random.RandomState(3)
     preds = [{
@@ -396,7 +396,7 @@ def test_lagged_tn_flags_evidence_free_frame_zero(seq_tree):
 def test_decay_lagged_confidences_runs_and_resets():
     """decay**k per consecutive stale frame, reset on real evidence;
     non-lagged frames and decay=1.0 are untouched."""
-    from mhmocap_tpu.data.ingestion import decay_lagged_confidences
+    from mhmocap.data.ingestion import decay_lagged_confidences
     T, N = 7, 2
     pose2d = np.zeros((T, N, 17, 3), np.float32)
     pose2d[..., 2] = 0.502

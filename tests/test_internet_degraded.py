@@ -20,9 +20,9 @@ pytestmark = pytest.mark.slow
 
 
 def test_internet_entry_on_degraded_tree(tmp_path, monkeypatch):
-    from mhmocap_tpu.data.synthetic import generate_sequence
-    from mhmocap_tpu.models.synthetic import make_synthetic_smpl
-    import mhmocap_tpu.predict_internet as PI
+    from mhmocap.data.synthetic import generate_sequence
+    from mhmocap.models.synthetic import make_synthetic_smpl
+    import mhmocap.predict_internet as PI
 
     root = str(tmp_path / "video")
     model = make_synthetic_smpl(num_vertices=512, seed=13)

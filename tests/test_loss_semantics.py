@@ -12,12 +12,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mhmocap_tpu.engine import optimizer as E
-from mhmocap_tpu.models.synthetic import make_synthetic_smpl
-from mhmocap_tpu.models.smpl import smpl_forward
-from mhmocap_tpu.ops.cameras import project_points, intrinsics_from_fov
-from mhmocap_tpu.ops.rasterizer import RasterSettings, rasterize_bodies
-from mhmocap_tpu.ops.morphology import erode
+from mhmocap.engine import optimizer as E
+from mhmocap.models.synthetic import make_synthetic_smpl
+from mhmocap.models.smpl import smpl_forward
+from mhmocap.ops.cameras import project_points, intrinsics_from_fov
+from mhmocap.ops.rasterizer import RasterSettings, rasterize_bodies
+from mhmocap.ops.morphology import erode
 
 
 @pytest.fixture(scope="module")

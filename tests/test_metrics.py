@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from mhmocap_tpu.eval import metrics as M
-from mhmocap_tpu.eval.mupots_eval import (append_weighted_average,
+from mhmocap.eval import metrics as M
+from mhmocap.eval.mupots_eval import (append_weighted_average,
                                           write_results_as_markdown)
 
 

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 from scipy.optimize import linear_sum_assignment
 
-from mhmocap_tpu import native
+from mhmocap import native
 
 
 def test_native_builds():
@@ -89,9 +89,9 @@ def test_fillin_iterates_to_full(rng):
 
 def test_cpu_cache_dir_fingerprint():
     """Host-fingerprinted CPU cache dirs: stable within a host, keyed
-    under the given root, 8-hex suffix (mhmocap_tpu/cache.py)."""
+    under the given root, 8-hex suffix (mhmocap/cache.py)."""
     import re
-    from mhmocap_tpu.cache import cpu_cache_dir, host_cpu_fingerprint
+    from mhmocap.cache import cpu_cache_dir, host_cpu_fingerprint
 
     fp = host_cpu_fingerprint()
     assert re.fullmatch(r"[0-9a-f]{8}", fp)
@@ -106,7 +106,7 @@ def test_cpu_cache_fingerprint_keys_on_model_and_xla_version():
     vary with the CPU microarchitecture and the XLA build at equal
     flag sets. The digest must change when the model name or the
     jaxlib version changes, flags held fixed."""
-    from mhmocap_tpu.cache import host_cpu_fingerprint
+    from mhmocap.cache import host_cpu_fingerprint
 
     base = host_cpu_fingerprint(flags="avx2 sse4_2",
                                 model="Xeon Platinum 8481C",
@@ -126,3 +126,30 @@ def test_cpu_cache_fingerprint_keys_on_model_and_xla_version():
     # version must move it
     assert host_cpu_fingerprint() != host_cpu_fingerprint(
         xla_version="not-a-real-version")
+
+
+@pytest.mark.parametrize("outside", ["", "/cache/outside"])
+def test_enable_compile_cache_location(outside):
+    """A configured directory (JAX_COMPILATION_CACHE_DIR, which JAX
+    reads into its config) wins and nothing else is set; without one
+    the cache is the fixed <repo>/.jax_cache."""
+    import os
+    import jax
+    from mhmocap import cache
+
+    saved = (jax.config.jax_compilation_cache_dir,
+             jax.config.jax_persistent_cache_min_compile_time_secs)
+    try:
+        jax.config.update("jax_compilation_cache_dir", outside or None)
+        path = cache.enable_compile_cache()
+        assert jax.config.jax_compilation_cache_dir == path
+        if outside:
+            assert path == outside
+        else:
+            assert path == os.path.join(cache.REPO, ".jax_cache")
+            assert os.path.isfile(os.path.join(cache.REPO,
+                                               "pyproject.toml"))
+    finally:
+        jax.config.update("jax_compilation_cache_dir", saved[0])
+        jax.config.update(
+            "jax_persistent_cache_min_compile_time_secs", saved[1])

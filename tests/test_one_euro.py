@@ -3,7 +3,7 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-from mhmocap_tpu.ops.one_euro import one_euro_filter, one_euro_bidirectional
+from mhmocap.ops.one_euro import one_euro_filter, one_euro_bidirectional
 
 
 class _GoldenOneEuro:

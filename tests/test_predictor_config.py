@@ -9,10 +9,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mhmocap_tpu.engine import optimizer as E
-from mhmocap_tpu.engine.predictor import Predictor
-from mhmocap_tpu.data.ingestion import SequenceArrays
-from mhmocap_tpu.ops.cameras import intrinsics_from_fov, project_points
+from mhmocap.engine import optimizer as E
+from mhmocap.engine.predictor import Predictor
+from mhmocap.data.ingestion import SequenceArrays
+from mhmocap.ops.cameras import intrinsics_from_fov, project_points
 
 
 def _default_args(**over):
@@ -96,7 +96,7 @@ def test_tune_time_layout_properties():
     without user buckets: shard divisibility always holds, padding
     stays within the documented bounds, and a device-count-multiple
     user bucket is never inflated."""
-    from mhmocap_tpu.engine.predictor import tune_time_layout
+    from mhmocap.engine.predictor import tune_time_layout
 
     def padded(T, chunk, bucket):
         step = int(np.lcm(chunk, bucket))
@@ -182,7 +182,7 @@ def test_predictor_fit_shards_over_mesh(tmp_path, capsys):
     Shapes deliberately match tests/test_spmd.py's fixture (32x32,
     N=2, T=16, chunk=2, window=16, V=256) so the sharded cycle
     program is a jit-cache hit within one suite run."""
-    from mhmocap_tpu.models.synthetic import make_synthetic_smpl
+    from mhmocap.models.synthetic import make_synthetic_smpl
 
     T, N, side = 16, 2, 32
     model = make_synthetic_smpl(num_vertices=256, seed=2)
@@ -256,7 +256,7 @@ def test_predictor_fit_gap_aware_spmd(tmp_path, capsys):
     engaged: the stale mask shards over the time axis, the 2-frame
     halo cycle compiles and executes, and outputs stay finite."""
     import dataclasses
-    from mhmocap_tpu.models.synthetic import make_synthetic_smpl
+    from mhmocap.models.synthetic import make_synthetic_smpl
 
     T, N, side = 16, 2, 32
     model = make_synthetic_smpl(num_vertices=256, seed=2)
@@ -373,7 +373,7 @@ def test_init_solve_uses_camera_distortion(tiny_smpl):
     cam_dist_coef in __init_global_poses, optimizer.py:752): with a
     strongly distorted camera the distortion-aware solve recovers the
     true translation, the naive one does not."""
-    from mhmocap_tpu.models.smpl import smpl_forward
+    from mhmocap.models.smpl import smpl_forward
 
     T, N, side = 4, 1, 256
     K = jnp.asarray(intrinsics_from_fov((side, side), 60.0))
@@ -410,7 +410,7 @@ def test_checkpoint_resume_mid_stage(tmp_path, capsys):
     """Orbax checkpoint/resume (beyond the reference, survey §5): a
     second Predictor pointed at the same output_path must resume from
     the latest checkpoint and only run the remaining cycles."""
-    from mhmocap_tpu.models.synthetic import make_synthetic_smpl
+    from mhmocap.models.synthetic import make_synthetic_smpl
 
     T, N, side = 16, 2, 32
     model = make_synthetic_smpl(num_vertices=256, seed=2)
@@ -450,7 +450,7 @@ def test_checkpoint_resume_under_spmd(tmp_path, capsys):
     de-shards or mismatches layouts would surface as a preemption
     failure on the pod, not in CI. A resumed run must also match an
     uninterrupted run's final parameters."""
-    from mhmocap_tpu.models.synthetic import make_synthetic_smpl
+    from mhmocap.models.synthetic import make_synthetic_smpl
 
     T, N, side = 16, 2, 32
     model = make_synthetic_smpl(num_vertices=256, seed=2)
@@ -529,7 +529,7 @@ def test_single_device_auto_chunk(tiny_smpl, tmp_path):
     """Without SPMD and without a user frame_bucket, the Predictor
     tunes the scan chunk for the cycle cadence: the chunk in [16, 48]
     minimizing padded length, fewer steps on ties (TS1 scale T=201 ->
-    7 steps of 29 at padded 203; docs/PERF.md round 3)."""
+    7 steps of 29 at padded 203)."""
     seq = _tiny_seq(T=201)
     p = Predictor(seq, tiny_smpl, str(tmp_path),
                   _default_args(spmd=False))

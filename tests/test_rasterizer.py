@@ -5,10 +5,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from mhmocap_tpu.ops.rasterizer import (
+from mhmocap.ops.rasterizer import (
     RasterSettings, rasterize_body, rasterize_bodies, full_image_raster,
     window_origin)
-from mhmocap_tpu.ops.cameras import project_points
+from mhmocap.ops.cameras import project_points
 
 
 K64 = np.array([[64.0, 0, 32], [0, 64.0, 32], [0, 0, 1]], np.float32)

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import pytest
 from scipy.spatial.transform import Rotation
 
-from mhmocap_tpu.models import smpl as M
+from mhmocap.models import smpl as M
 
 
 def test_rodrigues_matches_scipy(rng):
@@ -173,8 +173,8 @@ def test_load_smpl_pickle_with_chumpy_and_sparse(tmp_path):
     import sys
     import types
     import scipy.sparse as sp
-    from mhmocap_tpu.models.smpl import load_smpl_model, smpl_forward
-    from mhmocap_tpu.models.synthetic import make_synthetic_smpl
+    from mhmocap.models.smpl import load_smpl_model, smpl_forward
+    from mhmocap.models.synthetic import make_synthetic_smpl
 
     src = make_synthetic_smpl(num_vertices=512, seed=9)
     V = src.num_vertices

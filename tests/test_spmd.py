@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mhmocap_tpu.engine import optimizer as E
-from mhmocap_tpu.parallel import spmd
-from mhmocap_tpu.models.synthetic import make_synthetic_smpl
-from mhmocap_tpu.models.smpl import smpl_forward
-from mhmocap_tpu.ops.cameras import project_points, intrinsics_from_fov
+from mhmocap.engine import optimizer as E
+from mhmocap.parallel import spmd
+from mhmocap.models.synthetic import make_synthetic_smpl
+from mhmocap.models.smpl import smpl_forward
+from mhmocap.ops.cameras import project_points, intrinsics_from_fov
 
 
 @pytest.fixture(scope="module")
@@ -44,7 +44,7 @@ def spmd_problem():
     params, _, _ = E.init_params(model, pose2d, poses_smpl, betas, K,
                                  cfg, num_iter=20)
 
-    from mhmocap_tpu.data.ingestion import SequenceArrays
+    from mhmocap.data.ingestion import SequenceArrays
     seg = np.zeros((T, N, H, W), np.float32)
     seg[:, 0, 8:24, 4:14] = 1
     seg[:, 1, 8:24, 18:28] = 1

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from mhmocap_tpu.viz import viewer3d as V
+from mhmocap.viz import viewer3d as V
 
 
 def _camera(side=32):
@@ -174,10 +174,10 @@ def test_save_visualization_stage1_outputs(tmp_path):
     per-frame overlays, and the visualization pickle — with the SMPL
     forward and projections batched over all frames."""
     import types
-    from mhmocap_tpu.viz.export import save_visualization_stage1
-    from mhmocap_tpu.models.synthetic import make_synthetic_smpl
-    from mhmocap_tpu.ops.cameras import intrinsics_from_fov
-    from mhmocap_tpu.engine import optimizer as E
+    from mhmocap.viz.export import save_visualization_stage1
+    from mhmocap.models.synthetic import make_synthetic_smpl
+    from mhmocap.ops.cameras import intrinsics_from_fov
+    from mhmocap.engine import optimizer as E
 
     T, N, side = 3, 2, 32
     model = make_synthetic_smpl(num_vertices=256, seed=5)
@@ -212,7 +212,7 @@ def test_save_visualization_stage1_outputs(tmp_path):
                               pose2d, log, max_overlays=2)
     assert (tmp_path / "fig_optim_curves_stage1.png").exists()
 
-    from mhmocap_tpu.viz.export import save_visualization_init_data
+    from mhmocap.viz.export import save_visualization_init_data
     init_ov = dict(optvar)
     init_ov["pose2d"] = pose2d
     save_visualization_init_data(str(tmp_path), seq, model, init_ov,

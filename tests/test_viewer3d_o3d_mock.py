@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from mhmocap_tpu.viz import viewer3d as V
+from mhmocap.viz import viewer3d as V
 
 
 # ---------------------------------------------------------------------------
